@@ -21,8 +21,8 @@ def main():
     ap.add_argument("--max-dt", type=float, default=0.02)
     args = ap.parse_args()
 
-    from geoflowslam_tpu.io.trajectory import load_trajectory_tum
-    from geoflowslam_tpu.eval.ate import ate_rmse, rpe
+    from geoflowslam.io.trajectory import load_trajectory_tum
+    from geoflowslam.eval.ate import ate_rmse, rpe
 
     est = load_trajectory_tum(args.est)
     gt = load_trajectory_tum(args.gt)

@@ -165,9 +165,9 @@ def main():
               file=sys.stderr)
         sys.exit(2)
 
-    from geoflowslam_tpu.io.yaml_compat import system_config_from_yaml
-    from geoflowslam_tpu.pipeline.system import SlamSystem
-    from geoflowslam_tpu.retrieval import vocab as V
+    from geoflowslam.io.yaml_compat import system_config_from_yaml
+    from geoflowslam.pipeline.system import SlamSystem
+    from geoflowslam.retrieval import vocab as V
 
     cfg, y = system_config_from_yaml(args.config)
     if args.vocab and args.vocab.endswith(".txt"):
@@ -179,7 +179,7 @@ def main():
     slam = SlamSystem(cfg, vocab=vocab)
 
     rclpy.init()
-    node = rclpy.create_node("geoflowslam_tpu")
+    node = rclpy.create_node("geoflowslam")
     grab = RgbdInertialNode(node, slam,
                             depth_scale=cfg.frame.depth_map_factor)
     node.create_subscription(Image, args.rgb, grab.on_rgb, 100)

@@ -28,12 +28,12 @@ def main():
     ap.add_argument("--max-frames", type=int, default=0)
     args = ap.parse_args()
 
-    from geoflowslam_tpu.io import datasets as D
-    from geoflowslam_tpu.io.native_loader import FrameLoader
-    from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-    from geoflowslam_tpu.pipeline.inertial import ImuConfig
-    from geoflowslam_tpu.state.frame import FrameConfig
-    from geoflowslam_tpu.ops.extractor import OrbConfig
+    from geoflowslam.io import datasets as D
+    from geoflowslam.io.native_loader import FrameLoader
+    from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+    from geoflowslam.pipeline.inertial import ImuConfig
+    from geoflowslam.state.frame import FrameConfig
+    from geoflowslam.ops.extractor import OrbConfig
 
     frames, imu = D.load_euroc(args.sequence, "cam0")
     frames_r = None
@@ -43,7 +43,7 @@ def main():
         frames = frames[: args.max_frames]
 
     if args.settings:
-        from geoflowslam_tpu.io.yaml_compat import system_config_from_yaml
+        from geoflowslam.io.yaml_compat import system_config_from_yaml
         cfg, _ = system_config_from_yaml(
             args.settings, sensor="mono" if "mono" in args.mode else "rgbd")
         if "imu" not in args.mode:

@@ -32,10 +32,10 @@ def main():
     ap.add_argument("--max-frames", type=int, default=0)
     args = ap.parse_args()
 
-    from geoflowslam_tpu.io import datasets as D
-    from geoflowslam_tpu.io.native_loader import FrameLoader
-    from geoflowslam_tpu.io.yaml_compat import system_config_from_yaml
-    from geoflowslam_tpu.pipeline.system import SlamSystem
+    from geoflowslam.io import datasets as D
+    from geoflowslam.io.native_loader import FrameLoader
+    from geoflowslam.io.yaml_compat import system_config_from_yaml
+    from geoflowslam.pipeline.system import SlamSystem
 
     cfg, yaml_raw = system_config_from_yaml(args.settings, sensor="rgbd")
     frames = D.load_tum_associations(args.sequence, args.association)

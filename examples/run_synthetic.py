@@ -29,15 +29,15 @@ def main():
     args = ap.parse_args()
 
     import jax.numpy as jnp
-    from geoflowslam_tpu.utils.compile_log import enable_persistent_cache
+    from geoflowslam.utils.compile_log import enable_persistent_cache
     enable_persistent_cache()
-    from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                              SyntheticSequence, Camera)
-    from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-    from geoflowslam_tpu.pipeline.inertial import ImuConfig
-    from geoflowslam_tpu.state.frame import FrameConfig
-    from geoflowslam_tpu.ops.extractor import OrbConfig
-    from geoflowslam_tpu.eval.ate import ate_rmse, rpe
+    from geoflowslam.io.synthetic import (SyntheticWorld,
+                                          SyntheticSequence, Camera)
+    from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+    from geoflowslam.pipeline.inertial import ImuConfig
+    from geoflowslam.state.frame import FrameConfig
+    from geoflowslam.ops.extractor import OrbConfig
+    from geoflowslam.eval.ate import ate_rmse, rpe
 
     w, h = args.width, args.height
     cam = Camera(fx=w * 0.625, fy=w * 0.625, cx=w / 2, cy=h / 2,

@@ -4,7 +4,7 @@
 // (hobot::CThreadPool + System::CreateFrameAndPush + the timestamp-ordered
 // bounded mFrameQueue, /root/reference/src/ThreadPool.cpp,
 // src/System.cc:307-402, include/System.h:348-357): a worker pool decodes
-// and converts images ahead of the consumer while the TPU computes, and a
+// and converts images ahead of the consumer while the device computes, and a
 // bounded ordered queue delivers frames strictly in sequence index order.
 //
 // Decodes 8-bit PGM/PPM and 8/16-bit grayscale/RGB PNG (zlib inflate +

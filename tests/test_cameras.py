@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.math import cameras
+from geoflowslam.math import cameras
 
 
 PINHOLE_PARAMS = jnp.array([458.654, 457.296, 367.215, 248.375, 0, 0, 0, 0], jnp.float32)
@@ -56,7 +56,7 @@ class TestKB8:
 
 
 def test_triangulation():
-    from geoflowslam_tpu.math import triangulate, lie
+    from geoflowslam.math import triangulate, lie
 
     key = jax.random.PRNGKey(5)
     pts_w = rand_points(key, 64) * jnp.array([2.0, 2.0, 4.0]) + jnp.array([0, 0, 2.0])

@@ -52,7 +52,7 @@ def _ate(traj_rows, gt_rows):
 def test_tum_rgbd_inertial_driver_main(tmp_path, monkeypatch):
     """run_rgbd_tum.main over a generated TUM dir with --imu: produces a
     trajectory whose ATE vs the written groundtruth is centimetric."""
-    from geoflowslam_tpu.io import fixtures as FX
+    from geoflowslam.io import fixtures as FX
 
     seq = str(tmp_path / "tum_seq")
     _, settings, assoc = FX.export_tum_rgbd(seq, n_frames=35, fps=10.0)
@@ -75,7 +75,7 @@ def test_tum_rgbd_inertial_driver_main(tmp_path, monkeypatch):
 def test_euroc_mono_driver_main(tmp_path, monkeypatch):
     """run_euroc.main (mode=mono) over a generated mav0 dir: monocular
     bootstrap from disk, Sim3-aligned trajectory sane."""
-    from geoflowslam_tpu.io import fixtures as FX
+    from geoflowslam.io import fixtures as FX
 
     seq = str(tmp_path / "euroc_seq")
     FX.export_euroc(seq, n_frames=45, fps=10.0)
@@ -116,8 +116,8 @@ def test_euroc_mono_driver_main(tmp_path, monkeypatch):
 def test_png_roundtrip(tmp_path):
     """The fixture PNG writer round-trips through BOTH readers (python and
     native) at 8 and 16 bit."""
-    from geoflowslam_tpu.io import fixtures as FX
-    from geoflowslam_tpu.io import datasets as D
+    from geoflowslam.io import fixtures as FX
+    from geoflowslam.io import datasets as D
 
     g8 = (np.arange(48 * 64, dtype=np.uint32).reshape(48, 64) % 251
           ).astype(np.uint8)
@@ -130,7 +130,7 @@ def test_png_roundtrip(tmp_path):
     assert np.array_equal(D.load_image(p8), g8.astype(np.float32))
     assert np.array_equal(D.load_image(p16), d16.astype(np.float32))
 
-    from geoflowslam_tpu.io.native_loader import FrameLoader, native_available
+    from geoflowslam.io.native_loader import FrameLoader, native_available
     if native_available():
         it = iter(FrameLoader([p8], [p16], height=48, width=64))
         _, gray, depth = next(it)

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig, TrackingState
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig
-from geoflowslam_tpu.eval.ate import ate_rmse, rpe
+from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+from geoflowslam.pipeline.system import SlamSystem, SystemConfig, TrackingState
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig
+from geoflowslam.eval.ate import ate_rmse, rpe
 
 
 def small_system(w=320, h=240):

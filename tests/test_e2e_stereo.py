@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-from geoflowslam_tpu.pipeline.inertial import ImuConfig
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig
-from geoflowslam_tpu.ops.stereo import stereo_match
-from geoflowslam_tpu.eval.ate import ate_rmse
-from geoflowslam_tpu.math import lie
+from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+from geoflowslam.pipeline.inertial import ImuConfig
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig
+from geoflowslam.ops.stereo import stereo_match
+from geoflowslam.eval.ate import ate_rmse
+from geoflowslam.math import lie
 
 
 BASELINE = 0.1  # meters
@@ -80,7 +80,7 @@ def test_stereo_tracking_ate():
 @pytest.mark.slow
 def test_stereo_inertial_tracking():
     """Stereo-Inertial (EuRoC configs[2] essence) on the synthetic room."""
-    from geoflowslam_tpu.pipeline.inertial import ImuConfig
+    from geoflowslam.pipeline.inertial import ImuConfig
     w, h = 320, 240
     cam = Camera(fx=200.0, fy=200.0, cx=w / 2, cy=h / 2, width=w, height=h)
     orb = OrbConfig(n_features=300, n_levels=4, height=h, width=w)

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig
-from geoflowslam_tpu.eval.ate import ate_rmse
+from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig
+from geoflowslam.eval.ate import ate_rmse
 
 
 def run_variant(n_frames=30, fps=10.0, **cfg_kw):
@@ -27,7 +27,7 @@ def run_variant(n_frames=30, fps=10.0, **cfg_kw):
         t = i / seq.fps
         gray, depth, (rot_cw, t_cw) = seq.frame(t)
         if cfg.use_odom:
-            from geoflowslam_tpu.io.synthetic import smooth_trajectory
+            from geoflowslam.io.synthetic import smooth_trajectory
             _, _, v, _, _ = smooth_trajectory(jnp.asarray(t))
             slam.set_odom(np.asarray(v), odom_frame=False)  # world-frame GT
         slam.track_rgbd(gray, depth, t)
@@ -101,7 +101,7 @@ def test_g1_of_icp_lidar_fused():
 @pytest.mark.slow
 def test_icp_inertial_edgeicp():
     """The flagship G1 combo: RGB-D + IMU + ICP (EdgeICP factors in VI-BA)."""
-    from geoflowslam_tpu.pipeline.inertial import ImuConfig
+    from geoflowslam.pipeline.inertial import ImuConfig
     w, h = 320, 240
     cam = Camera(fx=200.0, fy=200.0, cx=w / 2, cy=h / 2, width=w, height=h)
     orb = OrbConfig(n_features=300, n_levels=4, height=h, width=w)

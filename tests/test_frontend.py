@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.ops import fast as fast_ops
-from geoflowslam_tpu.ops import orb as orb_ops
-from geoflowslam_tpu.ops import pyramid as pyr_ops
-from geoflowslam_tpu.ops.extractor import OrbConfig, extract
+from geoflowslam.ops import fast as fast_ops
+from geoflowslam.ops import orb as orb_ops
+from geoflowslam.ops import pyramid as pyr_ops
+from geoflowslam.ops.extractor import OrbConfig, extract
 
 
 def checker_image(h=96, w=128, sq=16, lo=40.0, hi=220.0):

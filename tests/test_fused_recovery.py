@@ -11,11 +11,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig, TrackingState
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig, extract
-from geoflowslam_tpu.retrieval import vocab as V
+from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+from geoflowslam.pipeline.system import SlamSystem, SystemConfig, TrackingState
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig, extract
+from geoflowslam.retrieval import vocab as V
 
 
 def _mk(loop=False):
@@ -34,7 +34,7 @@ def _mk(loop=False):
     voc = V.build_vocabulary(np.concatenate(desc), k=8, levels=2, iters=3)
     loop_cfg = None
     if loop:
-        from geoflowslam_tpu.pipeline.loop_closing import LoopConfig
+        from geoflowslam.pipeline.loop_closing import LoopConfig
         loop_cfg = LoopConfig(min_sim3_inliers=15, min_score=0.02)
     cfg = SystemConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=20.0,
                        frame=fc, k_max=32, m_max=4096,

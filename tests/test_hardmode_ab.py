@@ -18,12 +18,12 @@ The real-chip analogue is results_hard/ rgbd vs rgbd_of_icp
 import numpy as np
 import pytest
 
-from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                          HardSyntheticSequence, Camera)
-from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig
-from geoflowslam_tpu.eval.ate import ate_rmse
+from geoflowslam.io.synthetic import (SyntheticWorld,
+                                      HardSyntheticSequence, Camera)
+from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig
+from geoflowslam.eval.ate import ate_rmse
 
 FPS = 6.0
 N_FRAMES = 90          # 15 s: through the t=10 s blank-wall window

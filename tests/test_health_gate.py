@@ -15,11 +15,11 @@ poisoned chain would instead force LOST -> new Atlas map or a large ATE.
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-from geoflowslam_tpu.pipeline.system import SlamSystem
-from geoflowslam_tpu.eval.ate import ate_rmse
+from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+from geoflowslam.pipeline.system import SlamSystem
+from geoflowslam.eval.ate import ate_rmse
 
-from tests.test_e2e_rgbd import small_system
+from test_e2e_rgbd import small_system
 
 
 def test_blank_burst_rides_prediction_same_map():

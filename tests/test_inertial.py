@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.math import lie
-from geoflowslam_tpu.imu import preintegration as pre
-from geoflowslam_tpu.solvers import inertial
-from geoflowslam_tpu.solvers.pose_opt import PoseObs
+from geoflowslam.math import lie
+from geoflowslam.imu import preintegration as pre
+from geoflowslam.solvers import inertial
+from geoflowslam.solvers.pose_opt import PoseObs
 
 FX, FY, CX, CY = 400.0, 400.0, 320.0, 240.0
 
@@ -18,7 +18,7 @@ def make_calib():
 def simulate_segment(t0, t1, rate=200.0, bias=None, max_s=64):
     """IMU samples between t0, t1 on the test trajectory of
     tests/test_preintegration.synth_trajectory-style motion."""
-    from geoflowslam_tpu.io.synthetic import smooth_trajectory, GRAVITY
+    from geoflowslam.io.synthetic import smooth_trajectory, GRAVITY
     dt = 1.0 / rate
     n = int(round((t1 - t0) * rate))
     ts = t0 + (jnp.arange(max_s) + 0.5) * dt
@@ -33,7 +33,7 @@ def simulate_segment(t0, t1, rate=200.0, bias=None, max_s=64):
 
 
 def state_at(t):
-    from geoflowslam_tpu.io.synthetic import smooth_trajectory
+    from geoflowslam.io.synthetic import smooth_trajectory
     rot, p, v, *_ = smooth_trajectory(jnp.asarray(t))
     return inertial.BodyState(r_wb=rot, p=p, v=v, bg=jnp.zeros(3), ba=jnp.zeros(3))
 
@@ -134,7 +134,7 @@ class TestSegmentCompaction:
         delayed KF decisions at low frame rates) must decimate repeatedly —
         one halving used to leave len > cap and crash np.pad with a
         negative width — while preserving total integration time."""
-        from geoflowslam_tpu.pipeline.inertial import InertialTracker, ImuConfig
+        from geoflowslam.pipeline.inertial import InertialTracker, ImuConfig
 
         tr = InertialTracker(ImuConfig())
         rate, dt = 200.0, 1.0 / 200.0

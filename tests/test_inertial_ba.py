@@ -2,11 +2,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.math import lie
-from geoflowslam_tpu.imu import preintegration as pre
-from geoflowslam_tpu.solvers import inertial_ba as VIBA
-from geoflowslam_tpu.solvers.local_ba import BAProblem
-from geoflowslam_tpu.io.synthetic import smooth_trajectory, GRAVITY
+from geoflowslam.math import lie
+from geoflowslam.imu import preintegration as pre
+from geoflowslam.solvers import inertial_ba as VIBA
+from geoflowslam.solvers.local_ba import BAProblem
+from geoflowslam.io.synthetic import smooth_trajectory, GRAVITY
 
 FX, FY, CX, CY = 400.0, 400.0, 320.0, 240.0
 

@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.io import datasets, trajectory, yaml_compat
-from geoflowslam_tpu.eval.ate import ate_rmse
+from geoflowslam.io import datasets, trajectory, yaml_compat
+from geoflowslam.eval.ate import ate_rmse
 
 
 def test_yaml_compat_parses_reference_config():
@@ -86,7 +86,7 @@ def test_imu_between():
 
 
 def test_native_loader(tmp_path):
-    from geoflowslam_tpu.io import native_loader as NL
+    from geoflowslam.io import native_loader as NL
     if not NL.native_available():
         pytest.skip("native lib not built")
     rng = np.random.RandomState(3)
@@ -114,11 +114,11 @@ def test_native_loader(tmp_path):
 
 
 def test_async_api():
-    from geoflowslam_tpu.pipeline.async_api import AsyncSlam
-    from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-    from geoflowslam_tpu.state.frame import FrameConfig
-    from geoflowslam_tpu.ops.extractor import OrbConfig
-    from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+    from geoflowslam.pipeline.async_api import AsyncSlam
+    from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+    from geoflowslam.state.frame import FrameConfig
+    from geoflowslam.ops.extractor import OrbConfig
+    from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
 
     w, h = 320, 240
     cam = Camera(fx=200.0, fy=200.0, cx=w / 2, cy=h / 2, width=w, height=h)
@@ -142,9 +142,9 @@ def test_async_api():
 
 def test_undistortion_frame_build():
     import jax.numpy as jnp
-    from geoflowslam_tpu.state.frame import FrameConfig, build_frame
-    from geoflowslam_tpu.ops.extractor import OrbConfig
-    from geoflowslam_tpu.io.synthetic import SyntheticWorld, Camera
+    from geoflowslam.state.frame import FrameConfig, build_frame
+    from geoflowslam.ops.extractor import OrbConfig
+    from geoflowslam.io.synthetic import SyntheticWorld, Camera
 
     w, h = 256, 192
     cam = Camera(fx=150.0, fy=150.0, cx=w / 2, cy=h / 2, width=w, height=h)
@@ -172,8 +172,8 @@ def test_undistortion_frame_build():
 
 def test_viewer_smoke(tmp_path):
     import jax, jax.numpy as jnp
-    from geoflowslam_tpu.viewer.viewer import Viewer
-    from geoflowslam_tpu.state import map_state as M
+    from geoflowslam.viewer.viewer import Viewer
+    from geoflowslam.state import map_state as M
 
     ms = M.create(4, 32, 128)
     ms = M.insert_keyframe(
@@ -199,7 +199,7 @@ class TestFeedCodec:
     equivalence of the packed feed path through build_frame."""
 
     def test_roundtrip(self):
-        from geoflowslam_tpu.io import feed_codec as FC
+        from geoflowslam.io import feed_codec as FC
         rng = np.random.default_rng(0)
         h, w = 32, 64
         gray = rng.integers(0, 256, (h, w)).astype(np.uint8)
@@ -215,9 +215,9 @@ class TestFeedCodec:
         assert (d2[::7] == 0).all()
 
     def test_build_frame_packed_matches_raw(self):
-        from geoflowslam_tpu.io import feed_codec as FC
-        from geoflowslam_tpu.state.frame import FrameConfig, build_frame
-        from geoflowslam_tpu.ops.extractor import OrbConfig
+        from geoflowslam.io import feed_codec as FC
+        from geoflowslam.state.frame import FrameConfig, build_frame
+        from geoflowslam.ops.extractor import OrbConfig
         rng = np.random.default_rng(1)
         h, w = 64, 96
         gray = rng.integers(0, 256, (h, w)).astype(np.uint8)
@@ -373,7 +373,7 @@ class TestImuCalibration:
 def test_feed_codec_native_matches_numpy():
     """native/feed_pack.cpp must produce byte-identical buffers to the
     numpy reference implementation (u16 and f32 depth variants)."""
-    from geoflowslam_tpu.io import feed_codec as FC
+    from geoflowslam.io import feed_codec as FC
     if FC._load_lib() is None:
         import pytest as _pytest
         _pytest.skip("native lib not built")

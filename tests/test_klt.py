@@ -9,14 +9,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from geoflowslam_tpu.ops import klt as K
+from geoflowslam.ops import klt as K
 
 
 def _textured(h=120, w=160, seed=0):
     rng = np.random.default_rng(seed)
     base = rng.uniform(0, 255, (h // 4, w // 4)).astype(np.float32)
     img = jnp.asarray(np.kron(base, np.ones((4, 4), np.float32)))
-    from geoflowslam_tpu.ops.pyramid import gaussian_blur
+    from geoflowslam.ops.pyramid import gaussian_blur
     return gaussian_blur(img, 5, 1.2)
 
 

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geoflowslam_tpu.math import lie
+from geoflowslam.math import lie
 
 
 def rand_rotvecs(key, n, scale=2.5):

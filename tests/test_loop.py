@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.math import lie
-from geoflowslam_tpu.retrieval import vocab as V
-from geoflowslam_tpu.retrieval import kf_database as DB
-from geoflowslam_tpu.solvers import pose_graph as PG
-from geoflowslam_tpu.state import map_state as M
+from geoflowslam.math import lie
+from geoflowslam.retrieval import vocab as V
+from geoflowslam.retrieval import kf_database as DB
+from geoflowslam.solvers import pose_graph as PG
+from geoflowslam.state import map_state as M
 
 
 def random_desc(key, n):

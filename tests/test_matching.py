@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.ops import matching, gms, ransac
-from geoflowslam_tpu.math import lie
+from geoflowslam.ops import matching, gms, ransac
+from geoflowslam.math import lie
 
 
 def random_desc(key, n):

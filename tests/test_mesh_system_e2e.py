@@ -15,12 +15,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-from geoflowslam_tpu.pipeline.loop_closing import LoopConfig
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig, extract
-from geoflowslam_tpu.retrieval import vocab as V
+from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+from geoflowslam.pipeline.loop_closing import LoopConfig
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig, extract
+from geoflowslam.retrieval import vocab as V
 
 
 def _run(mesh, voc, seq, cam):

@@ -1,14 +1,23 @@
-"""Parity of the native C++ preintegrator vs the jitted JAX scan."""
+"""Parity of the host preintegrators (native C++ and its numpy twin) vs the
+jitted JAX scan."""
 import numpy as np
 import pytest
 
-from geoflowslam_tpu.imu import native_preint as NP
-from geoflowslam_tpu.imu import preintegration as pre
-from geoflowslam_tpu.pipeline.inertial import ImuConfig
+from geoflowslam.imu import native_preint as NP
+from geoflowslam.imu import preintegration as pre
+from geoflowslam.pipeline.inertial import ImuConfig
 
 
 @pytest.mark.skipif(not NP.available(), reason="native lib not built")
 def test_native_preintegrate_matches_jax():
+    _check_matches_jax(NP.preintegrate_np)
+
+
+def test_numpy_preintegrate_matches_jax():
+    _check_matches_jax(NP.preintegrate_numpy)
+
+
+def _check_matches_jax(impl):
     cfg = ImuConfig()
     calib = cfg.calib()
     rng = np.random.RandomState(3)
@@ -20,8 +29,8 @@ def test_native_preintegrate_matches_jax():
     bias = np.array([0.01, -0.02, 0.005, 0.1, -0.05, 0.02], np.float32)
 
     ref = pre.preintegrate(acc, gyro, dts, bias, calib)
-    got = NP.preintegrate_np(acc, gyro, dts, bias,
-                             np.asarray(calib.cov), np.asarray(calib.cov_walk))
+    got = impl(acc, gyro, dts, bias, np.asarray(calib.cov),
+               np.asarray(calib.cov_walk))
 
     np.testing.assert_allclose(float(got.dt), float(ref.dt), atol=1e-5)
     for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa"):
@@ -35,12 +44,20 @@ def test_native_preintegrate_matches_jax():
 
 @pytest.mark.skipif(not NP.available(), reason="native lib not built")
 def test_native_preintegrate_identity_on_empty():
+    _check_identity_on_empty(NP.preintegrate_np)
+
+
+def test_numpy_preintegrate_identity_on_empty():
+    _check_identity_on_empty(NP.preintegrate_numpy)
+
+
+def _check_identity_on_empty(impl):
     cfg = ImuConfig()
     calib = cfg.calib()
     z3 = np.zeros((8, 3), np.float32)
     z = np.zeros((8,), np.float32)
-    p = NP.preintegrate_np(z3, z3, z, np.zeros(6, np.float32),
-                           np.asarray(calib.cov), np.asarray(calib.cov_walk))
+    p = impl(z3, z3, z, np.zeros(6, np.float32), np.asarray(calib.cov),
+             np.asarray(calib.cov_walk))
     np.testing.assert_allclose(p.dR, np.eye(3), atol=1e-7)
     assert float(p.dt) == 0.0
     np.testing.assert_allclose(p.cov, 0.0, atol=1e-12)

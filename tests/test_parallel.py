@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-from geoflowslam_tpu.math import lie
-from geoflowslam_tpu.parallel import dist_ba
-from geoflowslam_tpu.solvers import local_ba
+from geoflowslam.math import lie
+from geoflowslam.parallel import dist_ba
+from geoflowslam.solvers import local_ba
 
 FX, FY, CX, CY = 400.0, 400.0, 320.0, 240.0
 
@@ -71,8 +71,8 @@ def test_distributed_matches_single_device():
 def test_distributed_global_ba_in_system():
     """global_ba_step_distributed over the 8-device mesh on a populated map."""
     import jax.numpy as jnp
-    from geoflowslam_tpu.state import map_state as M
-    from geoflowslam_tpu.pipeline import local_mapping as LM
+    from geoflowslam.state import map_state as M
+    from geoflowslam.pipeline import local_mapping as LM
 
     devs = jax.devices()
     mesh = Mesh(np.array(devs), axis_names=("land",))

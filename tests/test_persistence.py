@@ -3,9 +3,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.state import map_state as M
-from geoflowslam_tpu.state import serialize as S
-from geoflowslam_tpu.utils.timers import StageTimers
+from geoflowslam.state import map_state as M
+from geoflowslam.state import serialize as S
+from geoflowslam.utils.timers import StageTimers
 
 
 def test_atlas_roundtrip(tmp_path):
@@ -25,7 +25,7 @@ def test_atlas_roundtrip(tmp_path):
 
 
 def test_vocab_checksum_gate(tmp_path):
-    from geoflowslam_tpu.retrieval import vocab as V
+    from geoflowslam.retrieval import vocab as V
     import jax
 
     train = np.asarray(jax.random.randint(jax.random.PRNGKey(0), (500, 8),
@@ -46,14 +46,14 @@ def test_session_continue_roundtrip(tmp_path):
     session must track the same upcoming frames as the uninterrupted one
     (the reference's LoadAtlas cannot do this — System.cc:2102 starts a new
     active map and must relocalize)."""
-    from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                              SyntheticSequence, Camera)
-    from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-    from geoflowslam_tpu.pipeline.inertial import ImuConfig
-    from geoflowslam_tpu.pipeline.loop_closing import LoopConfig
-    from geoflowslam_tpu.state.frame import FrameConfig
-    from geoflowslam_tpu.ops.extractor import OrbConfig
-    from geoflowslam_tpu.retrieval.vocab import default_vocabulary
+    from geoflowslam.io.synthetic import (SyntheticWorld,
+                                          SyntheticSequence, Camera)
+    from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+    from geoflowslam.pipeline.inertial import ImuConfig
+    from geoflowslam.pipeline.loop_closing import LoopConfig
+    from geoflowslam.state.frame import FrameConfig
+    from geoflowslam.ops.extractor import OrbConfig
+    from geoflowslam.retrieval.vocab import default_vocabulary
 
     w, h = 320, 240
     cam = Camera(fx=200.0, fy=200.0, cx=w / 2, cy=h / 2, width=w, height=h)

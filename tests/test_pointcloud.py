@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.math import lie
-from geoflowslam_tpu.ops import pointcloud as pc
-from geoflowslam_tpu.ops import gicp
+from geoflowslam.math import lie
+from geoflowslam.ops import pointcloud as pc
+from geoflowslam.ops import gicp
 
 
 def make_room_cloud(key, n=2000):

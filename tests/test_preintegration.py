@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.imu import preintegration as pre
-from geoflowslam_tpu.math import lie
+from geoflowslam.imu import preintegration as pre
+from geoflowslam.math import lie
 
 
 def make_calib():

@@ -14,12 +14,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-from geoflowslam_tpu.pipeline.system import (SlamSystem, SystemConfig,
-                                             TrackingState)
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig, extract
-from geoflowslam_tpu.retrieval import vocab as V
+from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+from geoflowslam.pipeline.system import (SlamSystem, SystemConfig,
+                                         TrackingState)
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig, extract
+from geoflowslam.retrieval import vocab as V
 
 
 def _small_setup(w=320, h=240, n_feat=300, **cfg_kw):

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geoflowslam_tpu.state import map_state as M
+from geoflowslam.state import map_state as M
 
 
 def _populated_ms(k=4, n=16, m=64, all_mp_valid=False):
@@ -79,12 +79,12 @@ class TestEpochTimestamps:
     def test_time_base_offsets(self):
         """Epoch-scale driver stamps must land as small offsets on device
         and come back as exact absolute times in trajectories."""
-        from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-        from geoflowslam_tpu.state.frame import FrameConfig
-        from geoflowslam_tpu.ops.extractor import OrbConfig
-        from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                                  SyntheticSequence, Camera)
-        from geoflowslam_tpu.io.trajectory import keyframe_trajectory
+        from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+        from geoflowslam.state.frame import FrameConfig
+        from geoflowslam.ops.extractor import OrbConfig
+        from geoflowslam.io.synthetic import (SyntheticWorld,
+                                              SyntheticSequence, Camera)
+        from geoflowslam.io.trajectory import keyframe_trajectory
 
         w, h = 160, 120
         cam = Camera(fx=100.0, fy=100.0, cx=w / 2, cy=h / 2, width=w, height=h)
@@ -117,8 +117,8 @@ class TestLoopConsistency:
         """A single-shot candidate must never reach geometric verification;
         three consecutive consistent detections must (NewDetectCommonRegions'
         >=3 coincidences)."""
-        from geoflowslam_tpu.pipeline.loop_closing import LoopCloser, LoopConfig
-        from geoflowslam_tpu.retrieval import vocab as V
+        from geoflowslam.pipeline.loop_closing import LoopCloser, LoopConfig
+        from geoflowslam.retrieval import vocab as V
 
         key = jax.random.PRNGKey(4)
         train = jax.random.randint(key, (800, 8), 0, 2**31 - 1,
@@ -162,7 +162,7 @@ class TestLoopConsistency:
 
 class TestImuInitVariants:
     def _make(self, scale=2.0):
-        from geoflowslam_tpu.math import lie
+        from geoflowslam.math import lie
         rng = np.random.RandomState(0)
         K = 10
         g = np.array([0.2, -0.3, -9.79])
@@ -195,7 +195,7 @@ class TestImuInitVariants:
         """IMU.IMUMethod=2 (analytic/MQH accelerometer, methods.h:127,398):
         with rotation diversity the linear solve recovers ba, |g|-constrained
         gravity, and monocular scale exactly on noiseless data."""
-        from geoflowslam_tpu.solvers import inertial as VI
+        from geoflowslam.solvers import inertial as VI
         rots, ps, dts, dVs, dPs, JPa, JVa, vels, g, ba = self._make()
         v_est, grav, ba_est, scale = VI.solve_accelerometer_analytic(
             jnp.asarray(rots), jnp.asarray(ps / 2.0), jnp.asarray(dts),
@@ -209,7 +209,7 @@ class TestImuInitVariants:
     def test_scale_refinement(self):
         """LocalMapping::ScaleRefinement: with velocities/bias held, the
         scale-only solve recovers the drifted map scale."""
-        from geoflowslam_tpu.solvers import inertial as VI
+        from geoflowslam.solvers import inertial as VI
         rots, ps, dts, dVs, dPs, JPa, JVa, vels, g, ba = self._make()
         dV_c = dVs + np.einsum("kij,j->ki", JVa, ba)
         dP_c = dPs + np.einsum("kij,j->ki", JPa, ba)
@@ -224,7 +224,7 @@ class TestAsyncGBA:
     def test_microstep_gba_converges_and_propagates(self):
         """Interleaved GBA must reduce reprojection error and carry its
         correction onto a KF inserted while it was running."""
-        from geoflowslam_tpu.pipeline import local_mapping as LM
+        from geoflowslam.pipeline import local_mapping as LM
 
         cfg = LM.MappingConfig(fx=100.0, fy=100.0, cx=64.0, cy=48.0, bf=10.0)
         k, n, m = 6, 64, 256
@@ -289,7 +289,7 @@ class TestAsyncGBA:
                                         delta_parent)
 
     def test_abort_discards(self):
-        from geoflowslam_tpu.pipeline import local_mapping as LM
+        from geoflowslam.pipeline import local_mapping as LM
         cfg = LM.MappingConfig()
         ms = _populated_ms(all_mp_valid=True)
         gba = LM.AsyncGBA(cfg, ba_pts=64, iters_total=4)

@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                          HardSyntheticSequence, Camera)
-from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-from geoflowslam_tpu.pipeline.inertial import ImuConfig
-from geoflowslam_tpu.pipeline.loop_closing import LoopConfig
-from geoflowslam_tpu.retrieval.vocab import default_vocabulary
-from geoflowslam_tpu.state.frame import FrameConfig
-from geoflowslam_tpu.ops.extractor import OrbConfig
-from geoflowslam_tpu.eval.ate import ate_rmse
+from geoflowslam.io.synthetic import (SyntheticWorld,
+                                      HardSyntheticSequence, Camera)
+from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+from geoflowslam.pipeline.inertial import ImuConfig
+from geoflowslam.pipeline.loop_closing import LoopConfig
+from geoflowslam.retrieval.vocab import default_vocabulary
+from geoflowslam.state.frame import FrameConfig
+from geoflowslam.ops.extractor import OrbConfig
+from geoflowslam.eval.ate import ate_rmse
 
 
 @pytest.mark.slow
@@ -64,7 +64,7 @@ def test_hardmode_epoch_soak():
     # Loop closing is ON (LoopClosing thread parity, src/LoopClosing.cc:105)
     # and the sequence revisits its start at the 40 s period: the loop must
     # close and pull accumulated drift back under a tight gate.
-    from geoflowslam_tpu.eval.ate import rpe
+    from geoflowslam.eval.ate import rpe
     r = rpe(slam.trajectory, gt)
     assert r["rpe_trans"] < 0.06, (r, st)
     m = ate_rmse(slam.trajectory, gt)

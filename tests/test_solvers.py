@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geoflowslam_tpu.math import lie
-from geoflowslam_tpu.solvers import pose_opt, local_ba
+from geoflowslam.math import lie
+from geoflowslam.solvers import pose_opt, local_ba
 
 FX, FY, CX, CY = 400.0, 400.0, 320.0, 240.0
 

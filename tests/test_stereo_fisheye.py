@@ -13,9 +13,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from geoflowslam_tpu.math import cameras as CAM
-from geoflowslam_tpu.math import lie
-from geoflowslam_tpu.ops.stereo import fisheye_stereo_match
+from geoflowslam.math import cameras as CAM
+from geoflowslam.math import lie
+from geoflowslam.ops.stereo import fisheye_stereo_match
 
 KB8_L = (0.0035, 0.0007, -0.002, 0.0002)     # TUM-VI-like coefficients
 KB8_R = (0.0034, 0.0018, -0.0027, 0.0003)
@@ -98,12 +98,12 @@ def test_track_stereo_fisheye_e2e():
     """Dual-KB8 stereo rig on the synthetic room: the left/right images are
     ray-cast through the KB8 model; tracking must hold an ATE comparable to
     the rectified-stereo e2e gate."""
-    from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                              SyntheticSequence, Camera)
-    from geoflowslam_tpu.pipeline.system import (SlamSystem, SystemConfig,
-                                                 StereoFisheyeConfig)
-    from geoflowslam_tpu.state.frame import FrameConfig
-    from geoflowslam_tpu.ops.extractor import OrbConfig
+    from geoflowslam.io.synthetic import (SyntheticWorld,
+                                          SyntheticSequence, Camera)
+    from geoflowslam.pipeline.system import (SlamSystem, SystemConfig,
+                                             StereoFisheyeConfig)
+    from geoflowslam.state.frame import FrameConfig
+    from geoflowslam.ops.extractor import OrbConfig
 
     w, h = 320, 240
     fx = fy = 140.0
@@ -134,7 +134,7 @@ def test_track_stereo_fisheye_e2e():
                        kf_min_interval=1, kf_max_interval=4)
     slam = SlamSystem(cfg)
 
-    from geoflowslam_tpu.eval.ate import ate_rmse
+    from geoflowslam.eval.ate import ate_rmse
     gt = []
     for i in range(20):
         t = i / seq.fps
@@ -161,7 +161,7 @@ def test_yaml_tumvi_stereo_fisheye():
     path = "/root/reference/Examples/Stereo-Inertial/TUM-VI.yaml"
     if not os.path.exists(path):
         pytest.skip("reference config not mounted")
-    from geoflowslam_tpu.io import yaml_compat
+    from geoflowslam.io import yaml_compat
     cfg, y = yaml_compat.system_config_from_yaml(path)
     sf = cfg.stereo_fisheye
     assert sf is not None
@@ -177,14 +177,14 @@ def test_yaml_tumvi_stereo_fisheye():
 def test_track_stereo_fisheye_inertial_e2e():
     """Stereo-fisheye + IMU: preintegration drives prediction and the VI
     refinement on the dual-KB8 rig (the TUM-VI stereo-inertial regime)."""
-    from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                              SyntheticSequence, Camera)
-    from geoflowslam_tpu.pipeline.system import (SlamSystem, SystemConfig,
-                                                 StereoFisheyeConfig)
-    from geoflowslam_tpu.pipeline.inertial import ImuConfig
-    from geoflowslam_tpu.state.frame import FrameConfig
-    from geoflowslam_tpu.ops.extractor import OrbConfig
-    from geoflowslam_tpu.eval.ate import ate_rmse
+    from geoflowslam.io.synthetic import (SyntheticWorld,
+                                          SyntheticSequence, Camera)
+    from geoflowslam.pipeline.system import (SlamSystem, SystemConfig,
+                                             StereoFisheyeConfig)
+    from geoflowslam.pipeline.inertial import ImuConfig
+    from geoflowslam.state.frame import FrameConfig
+    from geoflowslam.ops.extractor import OrbConfig
+    from geoflowslam.eval.ate import ate_rmse
 
     w, h = 320, 240
     fx = fy = 140.0

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from geoflowslam_tpu.state import map_state as M
+from geoflowslam.state import map_state as M
 
 
 def _mini_map():
@@ -27,7 +27,7 @@ def _mini_map():
 
 
 def test_live_viewer_incremental(tmp_path):
-    from geoflowslam_tpu.viewer.viewer import LiveViewer
+    from geoflowslam.viewer.viewer import LiveViewer
     ms = _mini_map()
     v = LiveViewer(str(tmp_path))
     gray = np.random.default_rng(0).uniform(0, 255, (48, 64))
@@ -44,7 +44,7 @@ def test_live_viewer_incremental(tmp_path):
 
 
 def test_snapshot_viewer(tmp_path):
-    from geoflowslam_tpu.viewer.viewer import Viewer
+    from geoflowslam.viewer.viewer import Viewer
     ms = _mini_map()
     v = Viewer(str(tmp_path))
     p1 = v.draw_map(ms, cur_rot=np.eye(3), cur_t=np.zeros(3))
@@ -55,7 +55,7 @@ def test_interactive_html_export(tmp_path):
     """map.html: self-contained interactive 3D view (the Pangolin viewer's
     pan/rotate role, headless). Must embed the map content + the renderer
     with no external resources."""
-    from geoflowslam_tpu.viewer.html_export import export_html
+    from geoflowslam.viewer.html_export import export_html
     ms = _mini_map()
     traj = [(float(i), np.eye(4)) for i in range(5)]
     p = export_html(ms, traj, np.eye(3), np.zeros(3),

@@ -18,7 +18,8 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
 def main():
@@ -32,26 +33,25 @@ def main():
     args = ap.parse_args()
 
     import jax
-    os.makedirs("/root/.cache/jax_bench_cache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.cache/jax_bench_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-    from geoflowslam_tpu.utils.compile_log import install
+    from geoflowslam.utils.compile_log import (enable_persistent_cache,
+                                               install)
+    enable_persistent_cache()
     clog = install(explain_misses=True)
     print(f"device: {jax.devices()[0]}", file=sys.stderr)
 
-    from geoflowslam_tpu.io.synthetic import (SyntheticWorld,
-                                              HardSyntheticSequence, Camera)
-    from geoflowslam_tpu.pipeline.system import SlamSystem, SystemConfig
-    from geoflowslam_tpu.pipeline.inertial import ImuConfig
-    from geoflowslam_tpu.state.frame import FrameConfig
-    from geoflowslam_tpu.ops.extractor import OrbConfig
-    from geoflowslam_tpu.retrieval.vocab import default_vocabulary
+    from geoflowslam.io.synthetic import (SyntheticWorld,
+                                          HardSyntheticSequence, Camera)
+    from geoflowslam.pipeline.system import SlamSystem, SystemConfig
+    from geoflowslam.pipeline.inertial import ImuConfig
+    from geoflowslam.state.frame import FrameConfig
+    from geoflowslam.ops.extractor import OrbConfig
+    from geoflowslam.retrieval.vocab import default_vocabulary
 
     w, h, fps = 640, 480, 30.0
     import glob
     cands = sorted(glob.glob(
-        f"/root/.cache/gfs_hard_frames/m12_*_{fps:g}_{w}x{h}.npy"),
+        os.path.join(ROOT, ".cache", "hard_frames",
+                     f"m12_*_{fps:g}_{w}x{h}.npy")),
         key=lambda p: -os.path.getsize(p))
     if not cands:
         print("no m12 render cache; run examples/run_hardmode.py first",
@@ -77,7 +77,7 @@ def main():
 
     # IMU sample streams identical to run_hardmode's
     import jax.numpy as jnp
-    from geoflowslam_tpu.io.synthetic import hard_trajectory, GRAVITY
+    from geoflowslam.io.synthetic import hard_trajectory, GRAVITY
     s_max = 32
     ts_all = np.arange(n) / fps
     dt_imu = 1.0 / seq.imu_rate

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Run the standing hard-mode parity matrix and emit the PARITY.md table.
 
-VERDICT round-2 item #4: in lieu of TUM/EuRoC data (none exists in this
-environment), the committed substitute is the hard synthetic sequence
-(epoch stamps, 40 s loop revisits, rotation bursts, texture-poor segments)
-run for every primary mode, each with loop closing off and on, on the real
-TPU chip. Mirrors the role of the reference evaluator
+In lieu of TUM/EuRoC data (none is bundled), the committed substitute is
+the hard synthetic sequence (epoch stamps, 40 s loop revisits, rotation
+bursts, texture-poor segments) run for every primary mode, each with loop
+closing off and on, on the GPU. Mirrors the role of the reference evaluator
 (/root/reference/script/evaluator/ours/PoseEvaluatorTUM.py:16-53), and the
 reference's config-matrix ablations (tum_icp_op.yaml vs tum_no_icp_op.yaml,
 /root/reference/script/run_orbslam/RGBD/config/TUM/tum1/): the `of_icp`
@@ -18,8 +17,9 @@ the rescue delta vs the plain-visual cells.
         [--cells rgbd,rgbd_of_icp,...] [--force]
 
 Incremental: cells already present in <out>/matrix.json are skipped unless
---force, so an interrupted matrix run resumes where it stopped (each cell
-is a subprocess = fresh TPU client; runs serialize on the single chip).
+--force, so an interrupted matrix run resumes where it stopped. One process
+per card: this parent never imports JAX, and each cell is its own child
+process, run one after another, so only one process ever holds the card.
 Every completed cell updates matrix.json/matrix.md immediately.
 """
 import argparse

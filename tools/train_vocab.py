@@ -8,7 +8,7 @@ vocabulary must be trained on descriptors from *our* extractor. This tool
 harvests descriptors from a spread of synthetic scenes (varied textures,
 viewpoints, lighting) and runs the hierarchical binary k-medians build
 (retrieval/vocab.build_vocabulary), writing
-geoflowslam_tpu/assets/vocab_default.npz.
+geoflowslam/assets/vocab_default.npz.
 
     python tools/train_vocab.py [--k 10] [--levels 4] [--frames 60]
 """
@@ -28,15 +28,15 @@ def main():
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(
-        os.path.dirname(__file__), "..", "geoflowslam_tpu", "assets",
+        os.path.dirname(__file__), "..", "geoflowslam", "assets",
         "vocab_default.npz"))
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
-    from geoflowslam_tpu.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
-    from geoflowslam_tpu.ops.extractor import OrbConfig, extract
-    from geoflowslam_tpu.retrieval import vocab as V
+    from geoflowslam.io.synthetic import SyntheticWorld, SyntheticSequence, Camera
+    from geoflowslam.ops.extractor import OrbConfig, extract
+    from geoflowslam.retrieval import vocab as V
 
     cam = Camera(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=640, height=480)
     orb = OrbConfig(n_features=600, n_levels=8, height=480, width=640)
